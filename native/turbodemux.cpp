@@ -1,6 +1,6 @@
 // turbodemux: native demux+decode shim over libavformat/libavcodec.
 //
-// The TPU rebuild's host-side "native" component (the role the reference
+// This rebuild's host-side "native" component (the role the reference
 // fills with cudarse-video/NVDEC + codec-bitstream, see SURVEY.md section 7):
 // demux any container, decode on CPU, hand planar YUV + colour metadata to
 // Python through a minimal C ABI (loaded with ctypes).  Frames are copied

@@ -90,7 +90,7 @@ def test_integer_vif_close_to_float_path():
     int_stats = np.asarray(vif_scale_stats(ref, dis, integer=True))
     flt_stats = np.asarray(
         vif_scale_stats(
-            ref.astype(np.float32), dis.astype(np.float32), backend="jnp"
+            ref.astype(np.float32), dis.astype(np.float32)
         )
     )
     vi = vif_scores(int_stats[None])["vif"][0]
@@ -168,7 +168,6 @@ def test_integer_adm_close_to_float_path():
         adm_stats(
             ref[None].astype(np.float32),
             dis[None].astype(np.float32),
-            backend="jnp",
         )
     )[0]
     ai = float(adm_score(int_stats, 96, 128)["adm2"])

@@ -8,20 +8,12 @@ import pytest
 
 from turbo_metrics_tpu.io import h264, ivf
 from turbo_metrics_tpu.io.frame_source import RawFrame
-from turbo_metrics_tpu.io.y4m import Y4MFrameSource
+from turbo_metrics_tpu.io.y4m import Y4MFrameSource, write_y4m
 from turbo_metrics_tpu.utils.stats import Stats
 
 
-def _write_y4m(path, frames_yuv, w, h, depth=8, extra=""):
-    dtype = np.uint8 if depth == 8 else np.uint16
-    cs = "420" if depth == 8 else f"420p{depth}"
-    with open(path, "wb") as f:
-        f.write(f"YUV4MPEG2 W{w} H{h} F25:1 Ip A1:1 C{cs}{extra}\n".encode())
-        for y, u, v in frames_yuv:
-            f.write(b"FRAME\n")
-            f.write(y.astype(dtype).tobytes())
-            f.write(u.astype(dtype).tobytes())
-            f.write(v.astype(dtype).tobytes())
+def _write_y4m(path, frames_yuv, w, h, depth=8, full_range=False):
+    write_y4m(path, frames_yuv, w, h, depth=depth, full_range=full_range)
 
 
 def _rand_yuv(rng, w, h, depth=8):
@@ -53,7 +45,7 @@ def test_y4m_10bit_fullrange(tmp_path, rng):
     w, h = 16, 16
     frames = [_rand_yuv(rng, w, h, 10)]
     path = tmp_path / "t10.y4m"
-    _write_y4m(path, frames, w, h, depth=10, extra=" XCOLORRANGE=FULL")
+    _write_y4m(path, frames, w, h, depth=10, full_range=True)
     src = Y4MFrameSource(open(path, "rb"))
     assert src.depth == 10 and src.full_range
     f = src.next_frame()
@@ -486,3 +478,50 @@ def test_color_override_preserves_pushback(reschange_ts):
     # Both segments fully delivered, including the held boundary frame.
     assert (64, 48) in sizes and (128, 96) in sizes
     assert len(sizes) >= 6
+
+
+@pytest.mark.parametrize("full_range", [False, True], ids=["limited", "full"])
+@pytest.mark.parametrize("subsampling", ["420", "422", "444"])
+@pytest.mark.parametrize("depth", [8, 10])
+def test_write_y4m_roundtrip(tmp_path, depth, subsampling, full_range):
+    """Seeded synthetic frames through write_y4m and back through
+    Y4MFrameSource, sample for sample."""
+    from turbo_metrics_tpu.parity import synthetic_clip
+
+    w, h = 37, 21
+    refs, _ = synthetic_clip(4, 3, h, w, depth=depth)
+    if subsampling != "420":
+        rows = h
+        cols = w if subsampling == "444" else (w + 1) // 2
+        refs = [
+            (y, np.resize(u, (rows, cols)), np.resize(v, (rows, cols)))
+            for y, u, v in refs
+        ]
+    path = tmp_path / "clip.y4m"
+    write_y4m(path, refs, w, h, depth=depth, subsampling=subsampling,
+              full_range=full_range)
+    src = Y4MFrameSource(open(path, "rb"), path=str(path))
+    assert (src.width, src.height, src.depth) == (w, h, depth)
+    assert src.frame_count() == 3
+    assert src.color_characteristics()[1] == ("full" if full_range else "limited")
+    for y, u, v in refs:
+        f = src.next_frame()
+        assert f.chroma == int(subsampling)
+        assert f.full_range == full_range
+        np.testing.assert_array_equal(f.y, y)
+        np.testing.assert_array_equal(f.uv[..., 0], u)
+        np.testing.assert_array_equal(f.uv[..., 1], v)
+    assert src.next_frame() is None
+    src.close()
+
+
+def test_png_without_pillow_is_a_clear_error(tmp_path, monkeypatch):
+    from PIL import Image
+
+    from turbo_metrics_tpu.io import probe
+
+    p = tmp_path / "a.png"
+    Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(p)
+    monkeypatch.setattr(probe, "pillow_available", lambda: False)
+    with pytest.raises(ValueError, match=r"needs Pillow.*\[images\]"):
+        probe.create_source(str(p))

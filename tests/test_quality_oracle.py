@@ -59,78 +59,18 @@ def test_msssim_matches_oracle(rng, hw, noise):
     assert 0.0 < want <= 1.0
 
 
-@pytest.mark.parametrize("backend", ["jnp", "interpret"])
-def test_ssim_msssim_shared_pass_matches_separate(rng, backend):
-    """ssim_msssim (one shared level-0 windowed pass — the engine's
-    multi-metric fast path) must reproduce the independently computed
-    ssim() and msssim() values exactly (same ops, same order)."""
+def test_ssim_msssim_shared_pass_matches_separate(rng):
+    """ssim_msssim (one shared level-0 windowed pass) must reproduce the
+    independently computed ssim() and msssim() values exactly (same ops,
+    same order)."""
     a, b = _pair(rng, 3, 96, 128, 6.0)
     a = a[None].astype(np.float32)
     b = b[None].astype(np.float32)
-    s, ms = jax.jit(
-        lambda x, y: quality.ssim_msssim(x, y, backend=backend)
-    )(a, b)
-    s_ref = jax.jit(lambda x, y: quality.ssim(x, y, backend=backend))(a, b)
-    ms_ref = jax.jit(lambda x, y: quality.msssim(x, y, backend=backend))(a, b)
+    s, ms = jax.jit(quality.ssim_msssim)(a, b)
+    s_ref = jax.jit(quality.ssim)(a, b)
+    ms_ref = jax.jit(quality.msssim)(a, b)
     assert float(s[0]) == pytest.approx(float(s_ref[0]), abs=1e-7)
     assert float(ms[0]) == pytest.approx(float(ms_ref[0]), abs=1e-7)
-
-
-def test_quality_from_padded_matches_unpadded(rng):
-    """The engine's multi-metric padded fast path (quality_from_padded on
-    the conversion kernel's (2, B, 3, hp, wp) linear-RGB layout, in-kernel
-    quantization) must match psnr/ssim/msssim computed on the quantized
-    unpadded arrays."""
-    from turbo_metrics_tpu.ops.pallas.scale_stats import pad_to_layout4
-
-    h, w = 96, 160
-    # Linear RGB in [0, 1] (pre-quantization), like the conversion output.
-    lin = rng.uniform(0.0, 1.0, (2, 1, 3, h, w)).astype(np.float32)
-    lin[1] = np.clip(lin[0] + rng.normal(0, 0.03, lin[1].shape), 0, 1)
-    p12 = jax.jit(lambda x: pad_to_layout4(x, h, w))(jnp_asarray(lin))
-    got = jax.jit(
-        lambda p: quality.quality_from_padded(
-            p, h, w, want_psnr=True, want_ssim=True, want_msssim=True,
-            interpret=True,
-        )
-    )(p12)
-    q = np.clip(np.round(lin * 255.0), 0, 255).astype(np.float32)
-    want_psnr = float(jax.jit(quality.psnr)(q[0], q[1])[0])
-    want_ssim = float(
-        jax.jit(lambda a, b: quality.ssim(a, b, backend="interpret"))(
-            q[0], q[1]
-        )[0]
-    )
-    want_ms = float(
-        jax.jit(lambda a, b: quality.msssim(a, b, backend="interpret"))(
-            q[0], q[1]
-        )[0]
-    )
-    assert float(got["psnr"][0]) == pytest.approx(want_psnr, abs=1e-4)
-    assert float(got["ssim"][0]) == pytest.approx(want_ssim, abs=1e-6)
-    assert float(got["msssim"][0]) == pytest.approx(want_ms, abs=1e-6)
-
-    # Threaded (donated) level-0 emit buffer: same values, buffer returned.
-    from turbo_metrics_tpu.ops.pallas.windowed import msssim_ds_buffer_shape
-
-    ms_buf = jnp_asarray(
-        np.zeros(msssim_ds_buffer_shape(h, w, 1), np.float32)
-    )
-    got2 = jax.jit(
-        lambda p, mb: quality.quality_from_padded(
-            p, h, w, want_ssim=True, want_msssim=True, interpret=True,
-            ms_ds_buf=mb,
-        )
-    )(p12, ms_buf)
-    assert got2.pop("_ms_ds_buf").shape == ms_buf.shape
-    assert float(got2["ssim"][0]) == pytest.approx(want_ssim, abs=1e-6)
-    assert float(got2["msssim"][0]) == pytest.approx(want_ms, abs=1e-6)
-
-
-def jnp_asarray(x):
-    import jax.numpy as jnp
-
-    return jnp.asarray(x)
 
 
 def test_identical_pairs():

@@ -166,3 +166,14 @@ def test_score_monotone_in_distortion(rng):
         scores.append(s2.score_pair(base, dis))
     assert scores[0] == 100.0
     assert all(a > b for a, b in zip(scores, scores[1:]))
+
+
+@pytest.mark.parametrize(
+    "backend", ["pallas", "pallas3", "interpret", "interpret3", "auto"]
+)
+def test_removed_backend_names_raise(backend):
+    from turbo_metrics_tpu.models.ssimulacra2 import ssimulacra2_subscores
+
+    x = jnp.zeros((1, 3, 16, 16), jnp.float32)
+    with pytest.raises(ValueError, match="unknown SSIMULACRA2 backend"):
+        ssimulacra2_subscores(x, x, num_scales=2, backend=backend)

@@ -18,7 +18,7 @@ Usage: python tools/decode_scaling.py [N ...]   (default 1 2 4 8)
        python tools/decode_scaling.py --sd  (decode-only fps at the
            reference's own 720x576 config, sequential)
 Decodes the cached bench_e2e reference clip with ChunkedVideoSource and
-prints wall-time, fps and overhead vs N=1.  Pure host work, no TPU.
+prints wall-time, fps and overhead vs N=1.  Pure host work, no device.
 """
 
 from __future__ import annotations

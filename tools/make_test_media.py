@@ -21,6 +21,10 @@ from pathlib import Path
 
 import numpy as np
 
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+from turbo_metrics_tpu.io.y4m import write_y4m  # noqa: E402
+
 
 def synth_luma(w, h, t, rng):
     yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
@@ -29,18 +33,6 @@ def synth_luma(w, h, t, rng):
         + 60 * np.sin(xx / 23.0 + t * 0.31) * np.cos(yy / 17.0)
         + 40 * np.sin((xx + yy) / 41.0 + t * 0.17)
     )
-
-
-def write_y4m(path, frames, w, h, depth=8):
-    cs = "420" if depth == 8 else f"420p{depth}"
-    dtype = np.uint8 if depth == 8 else np.uint16
-    with open(path, "wb") as f:
-        f.write(f"YUV4MPEG2 W{w} H{h} F25:1 Ip A1:1 C{cs}\n".encode())
-        for y, u, v in frames:
-            f.write(b"FRAME\n")
-            f.write(y.astype(dtype).tobytes())
-            f.write(u.astype(dtype).tobytes())
-            f.write(v.astype(dtype).tobytes())
 
 
 def make_pair_y4m(outdir, name, w, h, n, depth, noise, rng):
@@ -54,8 +46,8 @@ def make_pair_y4m(outdir, name, w, h, n, depth, noise, rng):
         yd = np.clip(y + rng.normal(0, noise * scale, y.shape), 0, hi)
         refs.append((y, u, v))
         diss.append((yd, u, v))
-    write_y4m(outdir / f"{name}_ref.y4m", refs, w, h, depth)
-    write_y4m(outdir / f"{name}_dis.y4m", diss, w, h, depth)
+    write_y4m(outdir / f"{name}_ref.y4m", refs, w, h, depth=depth)
+    write_y4m(outdir / f"{name}_dis.y4m", diss, w, h, depth=depth)
 
 
 def main() -> int:

@@ -3,7 +3,7 @@
 The reference project pins its GPU implementation to the C reference's
 17.398505 on a sample image pair (ssimulacra2-cuda/examples/compare.rs:70-95)
 with a +-0.25 budget.  This tool applies the same external-anchor gate to the
-TPU pipeline with the tighter +-0.05 budget from BASELINE.md — run it with
+device pipeline with the tighter +-0.05 budget from BASELINE.md — run it with
 any input pair whose score was produced by an independent implementation
 (cloudinary's ssimulacra2 CLI, libjxl's ssimulacra2, or the reference):
 
@@ -30,16 +30,18 @@ def main() -> int:
     ref_path, dis_path, expected = sys.argv[1], sys.argv[2], float(sys.argv[3])
     budget = float(sys.argv[4]) if len(sys.argv) > 4 else 0.05
 
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache")
     import numpy as np
 
-    from turbo_metrics_tpu.io.image import open_image
+    from turbo_metrics_tpu.io.probe import create_source
     from turbo_metrics_tpu.models.ssimulacra2 import Ssimulacra2
     from turbo_metrics_tpu.ops.colorspace import srgb_to_linear
+    from turbo_metrics_tpu.utils.compile_cache import enable_compilation_cache
+
+    enable_compilation_cache()
 
     frames = []
     for p in (ref_path, dis_path):
-        f = open_image(p).next_frame()
+        f = create_source(p).get_frame()
         if f is None or f.rgb is None:
             print(f"could not read an RGB frame from {p}")
             return 2

@@ -1,4 +1,4 @@
-"""turbo-metrics CLI: compare two videos/images with TPU-computed metrics.
+"""turbo-metrics CLI: compare two videos/images with GPU-computed metrics.
 
 Argument surface mirrors the reference CLI (turbo-metrics-cli/src/main.rs:31-102):
 positional reference/distorted (or '-' for stdin), repeated -m/--metrics,
@@ -31,7 +31,7 @@ def build_parser() -> argparse.ArgumentParser:
         description=(
             "Full-reference image/video quality metrics between a reference "
             "and a distorted file. Video decoding happens on the host CPU; "
-            "metric computations run on TPU via JAX/XLA. Use TM_LOG=debug "
+            "metric computations run on the GPU via JAX/XLA. Use TM_LOG=debug "
             "for verbose logging."
         ),
     )
@@ -61,7 +61,7 @@ def build_parser() -> argparse.ArgumentParser:
         default="default",
         help="Stdout format. Status goes to stderr in all cases.",
     )
-    p.add_argument("--batch", type=int, default=0, help="Frame pairs per TPU dispatch (0 = auto).")
+    p.add_argument("--batch", type=int, default=0, help="Frame pairs per device step (0 = auto).")
     p.add_argument("--no-progress", action="store_true", help="Disable the progress bar.")
     p.add_argument(
         "--color-matrix",
@@ -86,7 +86,7 @@ def build_parser() -> argparse.ArgumentParser:
         help=(
             "Parallel seek-partitioned decoders per input (seekable CFR "
             "files only; constant format). Lifts the single-stream CPU "
-            "decode ceiling when the TPU outruns one decoder."
+            "decode ceiling when the GPU outruns one decoder."
         ),
     )
     p.add_argument(
@@ -133,6 +133,9 @@ def main(argv: list[str] | None = None) -> int:
     from turbo_metrics_tpu.engine import Metrics, Options, TurboMetrics
     from turbo_metrics_tpu.io.probe import create_source
     from turbo_metrics_tpu.output import Output
+    from turbo_metrics_tpu.utils.compile_cache import enable_compilation_cache
+
+    enable_compilation_cache()
 
     metrics = Metrics(**{m: True for m in args.metrics})
 
@@ -224,10 +227,7 @@ def main(argv: list[str] | None = None) -> int:
             from turbo_metrics_tpu.engine import default_batch
 
             batch = min(
-                default_batch(
-                    source_ref.width, source_ref.height, metrics
-                ),
-                total_hint,
+                default_batch(source_ref.width, source_ref.height), total_hint
             )
         return TurboMetrics(
             source_ref.width,

@@ -2,7 +2,7 @@
 
 Parity role of codec-bitstream/src/av1.rs (which extracts the sequence header
 from MKV codec-private data), extended with a real parse of the colour config
-so the TPU pipeline learns depth/range/H.273 code points without a decoder.
+so the device pipeline learns depth/range/H.273 code points without a decoder.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Frame source protocol and raw frame containers.
 
-The TPU analog of the reference's FrameSource trait + HwFrame enum
+The analog of the reference's FrameSource trait + HwFrame enum
 (turbo-metrics/src/lib.rs:125-156): sources yield host-side raw frames
 (planar YUV 4:2:0 or packed RGB) plus colour metadata; the engine batches
 them and ships them to the device.

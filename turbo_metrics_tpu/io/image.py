@@ -61,9 +61,7 @@ class ImageProbe(Enum):
         return None
 
     def can_decode(self) -> bool:
-        try:
-            from PIL import Image  # noqa: F401
-        except ImportError:  # pragma: no cover
+        if not pillow_available():
             return False
         if self in (ImageProbe.JPEGXL, ImageProbe.QOI, ImageProbe.AVIF):
             # Pillow needs plugins for these; probe for support.
@@ -75,6 +73,15 @@ class ImageProbe(Enum):
             except Exception:
                 return False
         return True
+
+
+def pillow_available() -> bool:
+    """Whether Pillow, the optional still-image decoder, is installed."""
+    try:
+        import PIL  # noqa: F401
+    except ImportError:
+        return False
+    return True
 
 
 SRGB_CHARACTERISTICS = ColorCharacteristics(

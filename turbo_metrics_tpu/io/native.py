@@ -1,7 +1,7 @@
 """ctypes bindings for the native turbodemux shim (native/turbodemux.cpp).
 
 Host-side decode: libavformat/libavcodec demux + decode to planar YUV with
-full colour metadata.  This is the TPU build's replacement for the
+full colour metadata.  This is this build's replacement for the
 reference's NVDEC path (cudarse-video) — decode happens on host CPU and
 frames stream to the device, the mode the reference itself plans for
 (README.md:66-70).

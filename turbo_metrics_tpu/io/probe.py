@@ -19,7 +19,12 @@ from pathlib import Path
 from typing import BinaryIO, Optional, Union
 
 from turbo_metrics_tpu.io.frame_source import FrameSource
-from turbo_metrics_tpu.io.image import PROBE_LEN, ImageFrameSource, ImageProbe
+from turbo_metrics_tpu.io.image import (
+    PROBE_LEN,
+    ImageFrameSource,
+    ImageProbe,
+    pillow_available,
+)
 from turbo_metrics_tpu.io.ivf import IVF_MAGIC
 from turbo_metrics_tpu.io.mkv import EBML_MAGIC
 from turbo_metrics_tpu.io.y4m import Y4M_MAGIC, Y4MFrameSource
@@ -76,6 +81,11 @@ def create_source(path: Union[str, Path], *, use_stdin: bool = False) -> FrameSo
 def _probe_stream(f, path: Optional[str], prefix: bytes) -> FrameSource:
     img = ImageProbe.probe(prefix)
     if img is not None:
+        if not pillow_available():
+            raise ValueError(
+                f"{img.value} input needs Pillow, an optional dependency "
+                "(pip install 'turbo-metrics-tpu[images]')"
+            )
         if not img.can_decode():
             raise ValueError(f"detected {img.value} but no decoder is available")
         src = ImageFrameSource(f, img)

@@ -1,4 +1,4 @@
-"""YUV4MPEG2 (Y4M) raw video source — pure NumPy, zero-decode.
+"""YUV4MPEG2 (Y4M) raw video source and writer — pure NumPy, zero-decode.
 
 The fastest input path: planar YUV frames read straight off disk and shipped
 to the device.  Supports 8/10/12/16-bit 4:2:0 (and monochrome), limited or
@@ -8,7 +8,7 @@ full range via the non-standard XCOLORRANGE extension used by ffmpeg.
 from __future__ import annotations
 
 import io as _io
-from typing import BinaryIO, Optional
+from typing import BinaryIO, Iterable, Optional
 
 import numpy as np
 
@@ -167,3 +167,30 @@ def _read_line(f: BinaryIO, *, allow_eof: bool = False) -> Optional[bytes]:
         if b == b"\n":
             return bytes(out)
         out += b
+
+
+def write_y4m(
+    path,
+    frames: Iterable[tuple[np.ndarray, np.ndarray, np.ndarray]],
+    width: int,
+    height: int,
+    *,
+    depth: int = 8,
+    subsampling: str = "420",
+    full_range: bool = False,
+) -> None:
+    """Write (y, u, v) planar frames as a Y4M file that Y4MFrameSource
+    reads back sample for sample (XCOLORRANGE=FULL marks full range)."""
+    cs = subsampling if depth == 8 else f"{subsampling}p{depth}"
+    if cs not in _COLORSPACES:
+        raise ValueError(f"unsupported Y4M colorspace: {cs}")
+    dtype = np.uint8 if depth == 8 else np.uint16
+    rng_tag = " XCOLORRANGE=FULL" if full_range else ""
+    with open(path, "wb") as f:
+        f.write(
+            f"YUV4MPEG2 W{width} H{height} F25:1 Ip A1:1 C{cs}{rng_tag}\n".encode()
+        )
+        for planes in frames:
+            f.write(b"FRAME\n")
+            for plane in planes:
+                f.write(np.ascontiguousarray(plane, dtype=dtype).tobytes())

@@ -1,25 +1,22 @@
 """SSIMULACRA2 engine — the flagship metric, as one jitted XLA program.
 
-TPU-native redesign of the reference's CUDA-graph engine
+A redesign of the reference's CUDA-graph engine
 (ssimulacra2-cuda/src/lib.rs:27-447): where the reference records ~305 kernel
 launches into a CUDA graph and replays it per frame, here the whole 6-scale
 pyramid — XYB conversion, products, separable FIR Gaussian blurs, error maps
 and norm reductions — is a single traced jnp program that XLA fuses and
-schedules.  Frames are processed in batches so the TPU stays saturated; the
-final 108-weight dot product and nonlinearity run on the host in f64
+schedules.  Frames are processed in batches so the device stays saturated;
+the final 108-weight dot product and nonlinearity run on the host in f64
 (models/ssimulacra2_score.py).
 
-Layout: (B, 3, H, W) planar f32 — planar keeps the last axis a multiple of
-the TPU lane width for typical video dims and avoids the interleaved-RGB
-layout the reference itself lists as a perf regret (ssimulacra2-cuda/README.md
-"How to do better?").
+Layout: (B, 3, H, W) planar f32 — planar keeps the pixel rows contiguous and
+avoids the interleaved-RGB layout the reference itself lists as a perf
+regret (ssimulacra2-cuda/README.md "How to do better?").
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -32,74 +29,7 @@ from turbo_metrics_tpu.models.ssimulacra2_score import postprocess_score
 
 NUM_SCALES = 6
 
-# Small pyramid levels are fixed-cost-bound (~0.8 ms/kernel regardless of
-# size); once a level's whole padded plane fits under this many VMEM bytes,
-# ALL remaining levels run in one fused tail kernel (scale_stats.
-# fused_tail_pallas).  0 disables the tail (per-level kernels only).
-TAIL_MAX_BYTES = 8 * 1024 * 1024
-
-# Full-pyramid tail (ops/pallas/scale_tail.py): run ALL five remaining
-# levels after scale 0 in one tiled kernel (mxuC machinery, levels chained
-# in VMEM).  Default ON per the on-chip A/B (1080p b8 within-run:
-# 14.27 -> 14.09 ms, b16 28.12 -> 27.61; score delta 0.0016 vs the
-# v4-chain composition, budget 0.05).  TM_USE_TAIL2=0 restores the chain.
-import os as _os
-
-USE_TAIL2 = _os.environ.get("TM_USE_TAIL2", "1") == "1"
-
-# Skip zero-weighted sub-score work: only 52 of the 108 tuned weights are
-# nonzero, so the kernels can statically drop the other 56 sub-scores'
-# maps/blurs/reductions (models/ssimulacra2_score.weight_needs) — EXACT at
-# score level (a skipped entry is emitted as 0 and multiplies a 0 weight).
-# Every backend zeroes the same entries (_apply_needs_mask), so
-# cross-backend sub-score comparisons stay valid.  TM_SKIP_ZW=0 restores
-# full sub-score computation.
-SKIP_ZERO_WEIGHTED = _os.environ.get("TM_SKIP_ZW", "1") == "1"
-
-
-def _auto_needs(num_scales: int):
-    if not SKIP_ZERO_WEIGHTED:
-        return None
-    from turbo_metrics_tpu.models.ssimulacra2_score import weight_needs
-
-    return weight_needs(num_scales)
-
-
-def _apply_needs_mask(out: jax.Array, needs) -> jax.Array:
-    """Zero the (..., 3, S, 2, 3) sub-scores whose weight is zero, so every
-    backend (jnp, v3, mxuC-with-needs, interpret) emits the identical zero
-    pattern regardless of whether its kernel skipped the work."""
-    if needs is None:
-        return out
-    m = np.zeros((3, len(needs), 2, 3), np.float32)
-    for s, per_ch in enumerate(needs):
-        for c in range(3):
-            for k in range(6):
-                if per_ch[c][k]:
-                    m[c, s, k % 2, k // 2] = 1.0
-    return out * jnp.asarray(m)
-
-
-def _tail2_engages(
-    remaining: int, h: int, w: int, p12_shape, kernel_kwargs
-) -> bool:
-    """SINGLE source of truth for the full-pyramid-tail decision — used by
-    both the runtime (ssimulacra2_subscores_from_padded) and the ds-buffer
-    bookkeeping, so they can never disagree.  The tail hardcodes the
-    default (mxuC) engine, so any kernel variant kwargs disable it."""
-    if not USE_TAIL2 or remaining != 5 or kernel_kwargs:
-        return False
-    from turbo_metrics_tpu.ops.pallas.scale_tail import tail2_ok
-
-    return tail2_ok(h, w, p12_shape)
-
-
-def default_backend() -> str:
-    """Fused Pallas padded-chain on TPU, plain jnp elsewhere (CPU tests)."""
-    try:
-        return "pallas3" if jax.devices()[0].platform == "tpu" else "jnp"
-    except Exception:  # pragma: no cover
-        return "jnp"
+BACKENDS = ("jnp", "jnp_iir")
 
 
 def ssimulacra2_subscores(
@@ -107,7 +37,7 @@ def ssimulacra2_subscores(
     lin_dis: jax.Array,
     *,
     num_scales: int,
-    backend: str = "auto",
+    backend: str = "jnp",
 ) -> jax.Array:
     """Sub-scores for a batch of linear-RGB frame pairs.
 
@@ -118,66 +48,15 @@ def ssimulacra2_subscores(
     XLA sees one static program — the analog of the reference's CUDA graph
     capture (ssimulacra2-cuda/src/lib.rs:140-229).
 
-    ``backend``: 'pallas' uses the fused VMEM megakernel per scale
-    (ops/pallas/scale_stats.py — one HBM pass per scale), 'jnp' the plain
-    XLA-fused path, 'interpret' the Pallas interpreter (for CPU testing).
+    ``backend``: 'jnp' blurs with the 11-tap FIR (ops/gaussian.blur_2d);
+    'jnp_iir' is the parity mode — the faithful f32 recursive Gaussian the
+    canonical CPU implementations use, with their rounding drift
+    (ops/gaussian.blur_2d_iir), ~10x slower.
     """
-    if backend == "auto":
-        backend = default_backend()
-    needs = _auto_needs(num_scales)
-
-    if backend in ("pallas3", "interpret3"):
-        # Padded-chain pipeline (ops/pallas/scale_stats.py v4): one kernel
-        # per level that also writes the next level's padded input (exact
-        # in-kernel MXU downscale) — no jnp.pad / slice copies and no
-        # separate downscale kernels anywhere in the scale loop.
-        from turbo_metrics_tpu.ops.pallas.scale_stats import pad_to_layout4
-
-        interp = backend == "interpret3"
-        h, w = lin_ref.shape[-2], lin_ref.shape[-1]
-        p12 = pad_to_layout4(jnp.stack([lin_ref, lin_dis]), h, w)
-        return ssimulacra2_subscores_from_padded(
-            p12, h, w, num_scales=num_scales, interpret=interp, needs=needs
+    if backend not in BACKENDS:
+        raise ValueError(
+            f"unknown SSIMULACRA2 backend {backend!r}; expected one of {BACKENDS}"
         )
-
-    if backend in ("pallas2", "interpret2"):
-        # Fully fused path, one kernel per scale (ops/pallas/scale_stats.py
-        # v3): XYB + 4-blur (s11+s22 collapsed by linearity) + maps + sums,
-        # H blur pass on the MXU, input DMA double-buffered across grid
-        # steps.  Config picked by on-chip sweep (tools/perf_lab.py):
-        # 64x1024 tiles, HIGHEST matmul precision (f32-exact).
-        from turbo_metrics_tpu.ops.pallas.convert import downscale_by_2_pallas
-        from turbo_metrics_tpu.ops.pallas.scale_stats import (
-            fused_scale_pallas_v3,
-            norms_from_sums,
-        )
-
-        interp = backend == "interpret2"
-        per_scale = []
-        for s in range(num_scales):
-            h, w = lin_ref.shape[-2], lin_ref.shape[-1]
-            sums = fused_scale_pallas_v3(
-                lin_ref,
-                lin_dis,
-                tile_h=64,
-                tile_w=1024,
-                h_pass="mxu",
-                double_buffer=True,
-                interpret=interp,
-            )
-            per_scale.append(norms_from_sums(sums, h * w))
-            if s < num_scales - 1:
-                # Separate small kernel: the in-kernel MXU downscale needs
-                # HIGHEST-precision matmuls whose decomposition buffers blow
-                # the megakernel's VMEM budget.
-                lin_ref = downscale_by_2_pallas(lin_ref, interpret=interp)
-                lin_dis = downscale_by_2_pallas(lin_dis, interpret=interp)
-        return _apply_needs_mask(jnp.stack(per_scale, axis=2), needs)
-
-    # 'jnp_iir': the faithful f32 recursive-Gaussian blur (parity mode — the
-    # recursion the canonical CPU implementations use, with their rounding
-    # drift; see ops/gaussian.py blur_2d_iir).  ~10x slower than the FIR
-    # paths; use for tight score-parity validation against the reference.
     blur_fn = blur_2d
     if backend == "jnp_iir":
         from turbo_metrics_tpu.ops.gaussian import blur_2d_iir
@@ -191,236 +70,15 @@ def ssimulacra2_subscores(
             lin_dis = downscale_by_2(lin_dis)
         xyb1 = linear_rgb_to_xyb(lin_ref)
         xyb2 = linear_rgb_to_xyb(lin_dis)
-
-        if backend in ("pallas", "interpret"):
-            from turbo_metrics_tpu.ops.pallas.scale_stats import (
-                norms_from_sums,
-                scale_sums_pallas,
-            )
-
-            sums = scale_sums_pallas(
-                xyb1, xyb2, interpret=backend == "interpret"
-            )
-            npx = xyb1.shape[-2] * xyb1.shape[-1]
-            per_scale.append(norms_from_sums(sums, npx))
-        else:
-            # Blur 5 quantities (mu1, mu2, sigma11, sigma22, sigma12) in one
-            # fused separable pass — the analog of the reference's 5-image
-            # fused blur launch (ssimulacra2-cuda/src/kernel.rs:219-277).
-            stacked = jnp.concatenate(
-                [xyb1, xyb2, xyb1 * xyb1, xyb2 * xyb2, xyb1 * xyb2], axis=1
-            )
-            mu1, mu2, s11, s22, s12 = jnp.split(blur_fn(stacked), 5, axis=1)
-            per_scale.append(scale_norms(xyb1, xyb2, mu1, mu2, s11, s22, s12))
-    return _apply_needs_mask(jnp.stack(per_scale, axis=2), needs)
-
-
-def ssimulacra2_subscores_from_padded(
-    p12: jax.Array,
-    h: int,
-    w: int,
-    *,
-    num_scales: int,
-    interpret: bool = False,
-    ds_bufs: Optional[list] = None,
-    needs="auto",
-    **kernel_kwargs,
-):
-    """v4 padded-chain sub-scores from a producer-written (2, B, 3, hp, wp)
-    buffer (ops/pallas/convert.yuv420_to_linear_rgb_padded) — the zero-copy
-    fast path: no pad or slice materialisation anywhere between the decoded
-    YUV planes and the final sums.
-
-    ``needs``: per-scale zero-weight work masks (SKIP_ZERO_WEIGHTED).  The
-    default "auto" derives them from ``num_scales`` — correct when this
-    call computes the WHOLE pyramid (the weight stream is consumed
-    contiguously, see postprocess_score); mid-chain callers (from_yuv)
-    pass the explicit tail slice.  None disables skipping."""
-    if needs == "auto":
-        needs = _auto_needs(num_scales)
-    from turbo_metrics_tpu.ops.pallas.scale_stats import (
-        fused_scale_pallas_v4,
-        fused_tail_pallas,
-        norms_from_sums,
-        tail_plane_bytes,
-    )
-
-    per_scale = []
-    ds_outs = []
-    s = 0
-    while s < num_scales:
-        remaining = num_scales - s
-        if _tail2_engages(remaining, h, w, p12.shape, kernel_kwargs):
-            from turbo_metrics_tpu.ops.pallas.scale_tail import (
-                fused_pyramid_tail_pallas,
-            )
-
-            raw = fused_pyramid_tail_pallas(
-                p12, h, w, interpret=interpret,
-                needs_lvls=needs[s : s + 5] if needs is not None else None,
-            )
-            lh, lw = h, w
-            for li in range(5):
-                per_scale.append(
-                    norms_from_sums(raw[:, li, :, :6], lh * lw)
-                )
-                lh, lw = (lh + 1) // 2, (lw + 1) // 2
-            break
-        if remaining >= 2 and tail_plane_bytes(h, w) <= TAIL_MAX_BYTES:
-            dims = []
-            lh, lw = h, w
-            for _ in range(remaining):
-                dims.append((lh, lw))
-                lh, lw = (lh + 1) // 2, (lw + 1) // 2
-            tail = fused_tail_pallas(
-                p12, dims, interpret=interpret,
-                needs_lvls=(
-                    needs[s : s + remaining] if needs is not None else None
-                ),
-            )
-            for i, (lh, lw) in enumerate(dims):
-                per_scale.append(norms_from_sums(tail[:, i], lh * lw))
-            break
-        ds_buf = None
-        if ds_bufs is not None and len(ds_outs) < len(ds_bufs):
-            ds_buf = ds_bufs[len(ds_outs)]
-        sums, ds12 = fused_scale_pallas_v4(
-            p12, h, w, emit_ds=s < num_scales - 1, interpret=interpret,
-            ds_buf=ds_buf,
-            needs=needs[s] if needs is not None else None,
-            **kernel_kwargs,
+        # Blur 5 quantities (mu1, mu2, sigma11, sigma22, sigma12) in one
+        # fused separable pass — the analog of the reference's 5-image
+        # fused blur launch (ssimulacra2-cuda/src/kernel.rs:219-277).
+        stacked = jnp.concatenate(
+            [xyb1, xyb2, xyb1 * xyb1, xyb2 * xyb2, xyb1 * xyb2], axis=1
         )
-        per_scale.append(norms_from_sums(sums, h * w))
-        if s < num_scales - 1:
-            p12 = ds12
-            ds_outs.append(ds12)
-            h, w = (h + 1) // 2, (w + 1) // 2
-        s += 1
-    # Non-mxuC engines compute the full sub-scores; the mask makes the
-    # emitted zero pattern identical across engines (score unchanged).
-    out = _apply_needs_mask(jnp.stack(per_scale, axis=2), needs)
-    if ds_bufs is not None:
-        return out, ds_outs
-    return out
-
-
-def ssimulacra2_subscores_from_yuv(
-    y2: jax.Array,
-    uv2: jax.Array,
-    h: int,
-    w: int,
-    *,
-    num_scales: int,
-    depth: int = 8,
-    matrix: str = "bt709",
-    transfer: str = "bt709",
-    full_range: bool = False,
-    ds_bufs: Optional[list] = None,
-    padded_planes: Optional[tuple] = None,
-    needs="auto",
-    interpret: bool = False,
-    **kernel_kwargs,
-):
-    """Sub-scores straight from (2, B, h, w) luma + (2, B, ch, cw, 2)
-    chroma: scale 0 runs conversion-fused (scale_stats.
-    fused_scale0_yuv_pallas — full-resolution linear RGB never exists in
-    HBM), remaining levels consume its emitted padded chain.  Bit-identical
-    on TPU to the producer + v4 path; gate availability with
-    scale_stats.fused_yuv_ok(h, w).  ``kernel_kwargs`` (w_pass, precision,
-    cbrt) select the blur engine for every level.  ``padded_planes``
-    (scale_stats.pad_yuv_planes output) skips the in-step pad copies —
-    y2/uv2 may then be the padded luma/None."""
-    from turbo_metrics_tpu.ops.pallas.scale_stats import (
-        fused_scale0_yuv_pallas,
-        norms_from_sums,
-    )
-
-    if needs == "auto":
-        needs = _auto_needs(num_scales)
-    emit = num_scales > 1
-    ds0 = ds_bufs[0] if (ds_bufs and emit) else None
-    if padded_planes is not None:
-        y2 = uv2 = padded_planes[0]
-    sums0, ds12 = fused_scale0_yuv_pallas(
-        y2, uv2, h, w,
-        depth=depth, matrix=matrix, transfer=transfer,
-        full_range=full_range,
-        emit_ds=emit, ds_buf=ds0, padded_planes=padded_planes,
-        needs=needs[0] if needs is not None else None,
-        interpret=interpret, **kernel_kwargs,
-    )
-    per0 = norms_from_sums(sums0, h * w)[:, :, None]  # (B, 3, 1, 2, 3)
-    per0 = _apply_needs_mask(per0, needs[:1] if needs is not None else None)
-    if not emit:
-        return (per0, []) if ds_bufs is not None else per0
-    rest = ssimulacra2_subscores_from_padded(
-        ds12, (h + 1) // 2, (w + 1) // 2,
-        num_scales=num_scales - 1,
-        ds_bufs=ds_bufs[1:] if ds_bufs is not None else None,
-        needs=needs[1:] if needs is not None else None,
-        interpret=interpret, **kernel_kwargs,
-    )
-    if ds_bufs is not None:
-        rest, ds_rest = rest
-        return jnp.concatenate([per0, rest], axis=2), [ds12] + ds_rest
-    return jnp.concatenate([per0, rest], axis=2)
-
-
-def ds_buffer_shapes_yuv(
-    h: int, w: int, bsz: int, *, num_scales: int, kernel_kwargs=None
-) -> list[tuple[int, ...]]:
-    """ds-buffer shapes for ssimulacra2_subscores_from_yuv: the fused
-    scale-0 always emits one buffer; the rest follow the padded chain."""
-    from turbo_metrics_tpu.ops.pallas.scale_stats import ds_buffer_hw
-
-    if num_scales <= 1:
-        return []
-    hp2, wp2 = ds_buffer_hw(h, w)
-    head = [(2, bsz, 3, hp2, wp2)]
-    if _tail2_engages(
-        num_scales - 1, (h + 1) // 2, (w + 1) // 2,
-        (2, bsz, 3, hp2, wp2), kernel_kwargs,
-    ):
-        return head  # the full-pyramid tail consumes no emit buffers
-    return head + ds_buffer_shapes(
-        (h + 1) // 2, (w + 1) // 2, bsz,
-        num_scales=num_scales - 1, kernel_kwargs=kernel_kwargs,
-    )
-
-
-def ds_buffer_shapes(
-    h: int, w: int, bsz: int, *, num_scales: int, kernel_kwargs=None
-) -> list[tuple[int, ...]]:
-    """Shapes of the emit_ds buffers ssimulacra2_subscores_from_padded
-    threads when ``ds_bufs`` is passed (one per per-level kernel before the
-    fused tail takes over)."""
-    from turbo_metrics_tpu.ops.pallas.scale_stats import (
-        ds_buffer_hw,
-        tail_plane_bytes,
-    )
-
-    shapes = []
-    s = 0
-    prev_hw = None
-    while s < num_scales:
-        if prev_hw is not None:
-            # Mirror ssimulacra2_subscores_from_padded exactly: the
-            # full-pyramid tail consumes no emit buffers.  This level's
-            # input buffer is the parent level's emit target.
-            probe = (2, bsz, 3) + ds_buffer_hw(*prev_hw)
-            if _tail2_engages(
-                num_scales - s, h, w, probe, kernel_kwargs
-            ):
-                break
-        if num_scales - s >= 2 and tail_plane_bytes(h, w) <= TAIL_MAX_BYTES:
-            break
-        if s < num_scales - 1:
-            hp2, wp2 = ds_buffer_hw(h, w)
-            shapes.append((2, bsz, 3, hp2, wp2))
-        prev_hw = (h, w)
-        h, w = (h + 1) // 2, (w + 1) // 2
-        s += 1
-    return shapes
+        mu1, mu2, s11, s22, s12 = jnp.split(blur_fn(stacked), 5, axis=1)
+        per_scale.append(scale_norms(xyb1, xyb2, mu1, mu2, s11, s22, s12))
+    return jnp.stack(per_scale, axis=2)
 
 
 class Ssimulacra2:
@@ -432,7 +90,7 @@ class Ssimulacra2:
     """
 
     def __init__(
-        self, width: int, height: int, *, batch: int = 1, backend: str = "auto"
+        self, width: int, height: int, *, batch: int = 1, backend: str = "jnp"
     ):
         self.width = int(width)
         self.height = int(height)

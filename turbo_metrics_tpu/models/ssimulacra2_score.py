@@ -39,43 +39,6 @@ WEIGHTS = np.array([
 assert WEIGHTS.shape == (108,)
 
 
-def weight_needs(n_scales: int) -> tuple:
-    """Static per-scale work masks from the zero structure of WEIGHTS.
-
-    Only 52 of the 108 tuned weights are nonzero, so 56 of the
-    (channel, scale, norm, map) sub-scores never influence the final score
-    — the device kernels can skip computing them EXACTLY (the skipped
-    entries are emitted as 0, and 0 x 0-weight == anything x 0-weight).
-    At scale 0 this drops the modified-SSIM map (and with it the three
-    product blurs, their limb splits and both divides) on two of the three
-    XYB channels and 13 of the 18 sum reductions; at the last scale the
-    artifact map disappears entirely and one channel is fully dead.
-
-    Returns a tuple of ``n_scales`` entries, each a per-channel 6-tuple of
-    bools over the kernels' sum order (d, d^4, art, art^4, det, det^4) —
-    i.e. ``needs[s][c][2*m + n] == (WEIGHTS[c, s, n, m] != 0)`` under the
-    contiguous per-channel weight consumption postprocess_score applies
-    when fewer than 6 scales are computed.  Fully hashable (usable as a
-    static jit/pallas argument).
-    """
-    assert 1 <= n_scales <= 6
-    w = WEIGHTS[: 3 * n_scales * 6].reshape(3, n_scales, 2, 3)
-    return tuple(
-        tuple(
-            tuple(bool(w[c, s, k % 2, k // 2] != 0.0) for k in range(6))
-            for c in range(3)
-        )
-        for s in range(n_scales)
-    )
-
-
-def needs_mask(n_scales: int) -> np.ndarray:
-    """(3, n_scales, 2, 3) f32 0/1 mask of nonzero-weighted sub-scores —
-    the dense-array counterpart of weight_needs for the jnp backends."""
-    w = WEIGHTS[: 3 * n_scales * 6].reshape(3, n_scales, 2, 3)
-    return (w != 0.0).astype(np.float32)
-
-
 def postprocess_score(vals: np.ndarray) -> np.ndarray:
     """Sub-scores -> final SSIMULACRA2 score(s), all in f64.
 

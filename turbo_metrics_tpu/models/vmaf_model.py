@@ -3,7 +3,7 @@
 Parity role of the reference's libvmaf bindings (vmaf/src/lib.rs:160-245:
 ``score``/``score_pooled`` and ``VmafModel::load``): the reference hands its
 frames to libvmaf and reads back the pooled "vmaf" score; here the elementary
-features (motion, vif_scale0..3, adm) are computed on the TPU and the final
+features (motion, vif_scale0..3, adm) are computed on the device and the final
 support-vector regression runs on host in f64 — the model is ~200 support
 vectors over 6 features, microscopic next to the per-pixel device work.
 

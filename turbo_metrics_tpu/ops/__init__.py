@@ -1,1 +1,1 @@
-"""Device ops: the TPU analog of the reference's PTX kernel + NPP layer."""
+"""Device ops: the analog of the reference's PTX kernel + NPP layer."""

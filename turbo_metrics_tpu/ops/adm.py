@@ -105,13 +105,10 @@ def _filter_dec(x: jax.Array, taps: np.ndarray, axis: int = -1) -> jax.Array:
     index i correlates taps against input starting at 2*i - 1, ceil(d/2)
     outputs (libvmaf adm_dwt2 convention).
 
-    TPU layout notes (round-5 rework, bit-identical math): the tap
-    accumulation runs at FULL width and the stride-2 decimation happens
-    ONCE on the accumulated result — selecting even positions commutes
-    exactly with the weighted add, and one pair-select relayout replaces
-    the four per-tap ones the old form paid.  The column direction
-    (axis=-2) filters in place over sublanes, so the DWT needs no
-    transposes at all (the old form swapaxes'd every band twice)."""
+    The tap accumulation runs at full width and the stride-2 decimation
+    happens once on the accumulated result — selecting even positions
+    commutes exactly with the weighted add.  The column direction
+    (axis=-2) filters in place, so the DWT needs no transposes."""
     n = len(taps)
     w = [jnp.float32(v) for v in taps]
     d = x.shape[axis]
@@ -154,32 +151,14 @@ def _mask_filter(x: jax.Array) -> jax.Array:
     return acc
 
 
-def default_backend() -> str:
-    # Measured on TPU v5e (1080p b8, within-run A/B): XLA fuses the jnp DWT
-    # chain to 6.69 ms vs the Pallas kernels' 8.17 — the stride-2 DWT
-    # matmuls don't amortize the kernel's serial tile loop.  Re-measured
-    # in-step at the round-5 baseline (job 208): Pallas costs the
-    # multi-metric step 33.23 vs jnp's 31.09 ms/b8 — a fused ADM kernel
-    # serialises work XLA otherwise overlaps under the other families'
-    # Pallas launches.  Parked: jnp is the default on every platform; the
-    # Pallas path stays importable for geometry experiments only (and has
-    # NOT been re-based on the round-5 shared band-limb scheme).
-    return "jnp"
-
-
 def adm_stats(
-    y_ref: jax.Array, y_dis: jax.Array, *, backend: str | None = None,
-    integer: bool = False, depth: int = 8,
+    y_ref: jax.Array, y_dis: jax.Array, *, integer: bool = False,
+    depth: int = 8,
 ) -> jax.Array:
     """Per-scale, per-band centre-region cube sums for (B, H, W) f32 luma.
 
     Returns (B, NUM_LEVELS, 3, 2): [..., b, 0] = sum |masked csf*r_b|^3,
     [..., b, 1] = sum |csf*o_b|^3 over the centre region, bands b = (H, V, D).
-
-    ``backend``: 'jnp' (XLA-fused path — the default everywhere: measured
-    faster than the kernels on TPU, see default_backend), 'pallas' (fused
-    DWT/mask kernels, kept opt-in), 'interpret' (Pallas interpreter, for
-    CPU testing).
 
     ``integer=True`` selects the fixed-point path matching libvmaf's
     default integer-ADM conventions (ops/integer_adm.py; inputs are then
@@ -190,20 +169,6 @@ def adm_stats(
         from turbo_metrics_tpu.ops.integer_adm import integer_adm_stats
 
         return integer_adm_stats(y_ref, y_dis, depth=depth)
-    if backend is None:
-        backend = default_backend()
-    h, w = y_ref.shape[-2], y_ref.shape[-1]
-    if (
-        backend in ("pallas", "interpret")
-        and y_ref.ndim == 3
-        and min(h, w) >= 32
-    ):
-        from turbo_metrics_tpu.ops.pallas.adm import adm_stats_pallas
-
-        return adm_stats_pallas(
-            y_ref.astype(jnp.float32), y_dis.astype(jnp.float32),
-            interpret=backend == "interpret",
-        )
     o = y_ref.astype(jnp.float32)
     t = y_dis.astype(jnp.float32)
     eps = np.float32(DECOUPLE_EPS)

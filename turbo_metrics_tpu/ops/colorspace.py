@@ -1,6 +1,6 @@
 """Device colorspace conversions: YUV 4:2:0 / sRGB -> linear RGB, quantize.
 
-TPU-native replacement for the reference's colorspace kernels
+Replacement for the reference's colorspace kernels
 (cuda-colorspace-kernel/src/{lib.rs,biplanar.rs,srgb.rs,sample_conv.rs} and
 the host dispatch in cuda-colorspace/src/lib.rs).  Everything is expressed as
 vectorised jnp ops so XLA fuses the whole conversion into the downstream
@@ -24,7 +24,6 @@ PQ (SMPTE 2084) / HLG transfers for the HDR/XPSNR path.
 
 from __future__ import annotations
 
-import os
 from dataclasses import dataclass
 
 import jax
@@ -88,92 +87,6 @@ def srgb_eotf(v: jax.Array) -> jax.Array:
     beta = np.float32(0.0030412825)
     lo = v / np.float32(12.92)
     hi = jnp.power(jnp.maximum((v + (alpha - 1.0)) / alpha, 0.0), np.float32(2.4))
-    return jnp.where(v < np.float32(12.92) * beta, lo, hi)
-
-
-# -- division/transcendental-free EOTF powers (VPU fast path) ---------------
-#
-# The BT.709 and sRGB inverse OETFs spend their time in pow(x, 20/9) resp.
-# pow(x, 12/5) over the full frame.  Both decompose as x^2 * (x^(1/n))^2
-# with n = 9 resp. 5, and x^(-1/n) has a division-free Newton iteration
-# t <- t*((n+1) - x*t^n)/n seeded by the exponent bit trick (seed error
-# ~3%, three quadratic iterations reach f32 rounding; measured max 7e-7
-# relative on the EOTF domain — the same accuracy class as jnp.power).
-# The seeds below are optimized offline over x in [1e-6, 1].
-
-_INV9_MAGIC = np.float32(1183280279.0)  # 0x46876c97, t ~ x^(-1/9)
-_INV5_MAGIC = np.float32(1277930634.0)  # 0x4c2bac8a, t ~ x^(-1/5)
-
-
-def _pow_pm1(t: jax.Array, m: int) -> jax.Array:
-    """t^m by square-and-multiply (3 mults for t^8 instead of 7 — the
-    EOTF's inverse-root Newton evaluates t^(n-1) every iteration, and the
-    naive product chain dominated its op count)."""
-    acc = None
-    sq = t
-    while m:
-        if m & 1:
-            acc = sq if acc is None else acc * sq
-        m >>= 1
-        if m:
-            sq = sq * sq
-    return acc
-
-
-# Newton steps in the EOTF's inverse-root evaluation (see _pow_x2_xn2):
-# 2 -> maxrel 5.2e-7 for both n=9 (bt709) and n=5 (srgb); 1 -> 5.7e-6 /
-# 5.3e-7.  Default 1: measured -0.29 ms/b8 on chip at score delta 5.6e-4
-# (budget 0.05; job 036).
-EOTF_ITERS: int = int(os.environ.get("TM_EOTF_ITERS", "1"))
-
-
-def _pow_x2_xn2(x: jax.Array, n: int, magic: np.float32) -> jax.Array:
-    """x^2 * (x^(1/n))^2 = x^(2 + 2/n) for x in (0, ~1.6], division-free.
-
-    EOTF_ITERS inverse-root Newton steps from the magic seed, then the
-    exact third-order binomial correction (1+e)^(-(n-1)/n) ~ 1 + a*e +
-    c2*e^2 + c3*e^3 with e = x*t^n - 1: measured maxrel 5.2e-7 over
-    [1e-6, 1.6] for both n=9 and n=5 at 2 steps — better than three
-    Newton steps with the old first-order correction (7.8e-7) at one
-    fewer t^n evaluation per value."""
-    x = jnp.maximum(x, np.float32(1e-6))
-    i = jax.lax.bitcast_convert_type(x, jnp.int32).astype(jnp.float32)
-    j = magic - i * np.float32(1.0 / n)
-    t = jax.lax.bitcast_convert_type(j.astype(jnp.int32), jnp.float32)
-    for _ in range(EOTF_ITERS):
-        t = t * (np.float32(n + 1) - x * _pow_pm1(t, n)) * np.float32(
-            1.0 / n
-        )
-    tm = _pow_pm1(t, n - 1)  # t^(n-1)
-    e = x * (tm * t) - np.float32(1.0)
-    a = -(n - 1.0) / n
-    c2 = a * (a - 1.0) / 2.0
-    c3 = a * (a - 1.0) * (a - 2.0) / 6.0
-    corr = np.float32(1.0) + e * (
-        np.float32(a) + e * (np.float32(c2) + np.float32(c3) * e)
-    )
-    u = x * tm * corr  # x^(1/n)
-    return (x * x) * (u * u)
-
-
-def bt709_eotf_fast(v: jax.Array) -> jax.Array:
-    """bt709_eotf with the division-free x^(20/9) (Pallas kernels use this;
-    identical branch threshold, <=7e-7 relative vs the pow form)."""
-    alpha = np.float32(1.0 + 5.5 * 0.018053968510807)
-    threshold = np.float32(0.08124285829863521)
-    lo = v / np.float32(4.5)
-    x = jnp.maximum((v + (alpha - 1.0)) / alpha, 0.0)
-    hi = _pow_x2_xn2(x, 9, _INV9_MAGIC)
-    return jnp.where(v >= threshold, hi, lo)
-
-
-def srgb_eotf_fast(v: jax.Array) -> jax.Array:
-    """srgb_eotf with the division-free x^(12/5)."""
-    alpha = np.float32(1.0550107)
-    beta = np.float32(0.0030412825)
-    lo = v / np.float32(12.92)
-    x = jnp.maximum((v + (alpha - 1.0)) / alpha, 0.0)
-    hi = _pow_x2_xn2(x, 5, _INV5_MAGIC)
     return jnp.where(v < np.float32(12.92) * beta, lo, hi)
 
 
@@ -262,7 +175,6 @@ def yuv420_to_linear_rgb(
     transfer: str = "bt709",
     full_range: bool = False,
     chroma: int = 420,
-    backend: str = "auto",
 ) -> jax.Array:
     """Planar YCbCr -> linear RGB f32 in [0, 1].
 
@@ -271,25 +183,12 @@ def yuv420_to_linear_rgb(
     ceil(W/2)), 422: (H, ceil(W/2)), 444: (H, W).  Output: (..., 3, H, W)
     f32.
 
-    TPU-native equivalent of biplanaryuv420_to_linearrgb_* in
+    Equivalent of biplanaryuv420_to_linearrgb_* in
     cuda-colorspace-kernel/src/biplanar.rs:8-70, extended to full-chroma
     4:2:2/4:4:4 input (the reference decimates everything to NVDEC's 4:2:0
-    surfaces; the TPU rebuild decodes on the host and keeps the real chroma
-    grid).  On TPU, batched 3-D 4:2:0 inputs dispatch to the fused Pallas
-    kernel (ops/pallas/convert.py).
+    surfaces; this rebuild decodes on the host and keeps the real chroma
+    grid).
     """
-    if (
-        backend == "auto"
-        and chroma == 420
-        and y.ndim == 3
-        and jax.default_backend() == "tpu"
-        and transfer in ("bt709", "srgb", "pq", "hlg", "linear")
-    ):
-        from turbo_metrics_tpu.ops.pallas.convert import yuv420_to_linear_rgb_pallas
-
-        return yuv420_to_linear_rgb_pallas(
-            y, uv, depth=depth, matrix=matrix, transfer=transfer, full_range=full_range
-        )
     kr, kb = MATRIX_KR_KB[matrix]
     rng = sample_range(depth, full_range)
     kg = 1.0 - kr - kb

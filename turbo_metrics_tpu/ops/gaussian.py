@@ -1,11 +1,11 @@
-"""Gaussian blur used by SSIMULACRA2, as a TPU-friendly separable FIR.
+"""Gaussian blur used by SSIMULACRA2, as a separable FIR.
 
 The canonical SSIMULACRA2 implementation blurs with a "Recursive Implementation
 of the Gaussian Filter Using Truncated Cosine Functions" (Charalampidis 2016)
 at sigma = 1.5 (reference: ssimulacra2-cuda/examples/cpu.rs:950-1116, constants
 at :931-948; coefficient derivation in ssimulacra2-cuda-kernel/build.rs:29-140).
 
-Key observation for the TPU rebuild: that recursion is *not* an IIR filter in
+Key observation for this rebuild: that recursion is *not* an IIR filter in
 disguise — it is an exact FIR filter of radius 5.  The recurrence
 
     out[n] = c_in * (x[n-R-1] + x[n+R-1]) + c_prev * out[n-1] - out[n-2]
@@ -15,8 +15,8 @@ circle at e^{±i·k·pi/10}, k in {1,3,5}); the two input kicks at offsets
 -(R+1) and +(R-1) are phased so the oscillation cancels exactly outside a
 window of 2R+1 = 11 taps.  The impulse response is therefore a finite,
 symmetric 11-tap kernel — we derive it numerically from the recurrence below
-and apply it as a separable shifted-add convolution, which maps onto the TPU
-VPU as a single fused elementwise pass instead of a sequential scan.
+and apply it as a separable shifted-add convolution, which XLA fuses into
+elementwise passes instead of a sequential scan.
 
 Border handling matches the reference: zero padding, no renormalisation.
 """

@@ -1,5 +1,5 @@
 """Integer (fixed-point) ADM device path — libvmaf's default-convention
-analog, TPU-native 32-bit schedule.
+analog, 32-bit schedule.
 
 Implements the exact schedule specified in ``refimpl/integer_adm.py``
 (Q13 normalised db2 taps, Q8 int32 bands, defined rounding shifts,
@@ -11,9 +11,8 @@ is gated at tolerance in tests.
 
 A notable practical benefit over the float path: the decoupling angle
 gate — DISCONTINUOUS in the float formulation, where ~1e-6 of f32
-summation-order rounding can flip near-tie pixels (docs/PERFORMANCE.md
-"Numeric-safety lessons") — is decided on exact integers here, so it is
-reproducible across platforms by construction.
+summation-order rounding can flip near-tie pixels — is decided on exact
+integers here, so it is reproducible across platforms by construction.
 
 Opt-in via ``ops.adm.adm_stats(..., integer=True)``.
 """

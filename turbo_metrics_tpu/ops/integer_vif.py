@@ -1,5 +1,5 @@
 """Integer (fixed-point) VIF device path — libvmaf's default-convention
-analog, TPU-native 32-bit schedule.
+analog, 32-bit schedule.
 
 libvmaf's default VIF is fixed-point (``integer_vif.c``; the reference
 binds libvmaf and reads these features back, vmaf/src/lib.rs:160-217).
@@ -9,15 +9,14 @@ shifts, integer moments, reflect-101 borders) with jnp integer ops:
 
 * every blur accumulation has nonnegative terms and a true value < 2^32,
   so uint32 wraparound arithmetic reproduces the oracle's int64 result
-  BIT-EXACTLY — no 64-bit integers needed (TPUs have none natively);
+  BIT-EXACTLY — no 64-bit integers needed (JAX's default is 32-bit);
 * the moment statistics (s11/s22/s12, Q8) are int32-exact;
 * only the final per-pixel log2 terms are float (f32 on device vs the
   oracle's f64 — gated at 1e-5 relative in tests; the integer statistics
   themselves are gated bit-exactly).
 
 Opt-in via ``ops.vif.vif_scale_stats(..., integer=True)``.  This is a
-fidelity mode, not a speed path: XLA fuses the integer chain well, but no
-Pallas megakernel is provided (the float Pallas path is the fast default).
+fidelity mode, not a speed path; the float path is the default.
 """
 
 from __future__ import annotations

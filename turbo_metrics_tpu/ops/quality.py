@@ -1,6 +1,6 @@
 """Classic quality metrics: PSNR, SSIM, MS-SSIM on 8-bit-quantized RGB.
 
-TPU-native replacement for the NPP statistics primitives the reference calls
+Replacement for the NPP statistics primitives the reference calls
 (nppiPSNR/nppiSSIM/nppiWMSSSIM via cudarse-npp/src/image/ist.rs:68-181, driven
 from turbo-metrics/src/lib.rs:296-339).  Like the reference, these operate on
 linear-RGB frames quantized to 8 bits (turbo-metrics/src/lib.rs:296-305);
@@ -64,35 +64,8 @@ def _ssim_parts(a: jax.Array, b: jax.Array):
     return luminance, cs
 
 
-def _pallas_ok(a: jax.Array, backend: str) -> bool:
-    """Pallas windowed kernel: TPU (or interpret), 3-channel, window fits."""
-    if backend == "jnp":
-        return False
-    if a.shape[-3] != 3 or min(a.shape[-2], a.shape[-1]) < 11:
-        return False
-    if backend in ("pallas", "interpret"):
-        return True
-    try:  # auto
-        return jax.devices()[0].platform == "tpu"
-    except Exception:  # pragma: no cover
-        return False
-
-
-def _level_means(a: jax.Array, b: jax.Array, backend: str):
-    """(mean(luminance*cs), mean(cs)) over (C, valid H, valid W) -> (...,).
-
-    Dispatches between the fused Pallas windowed kernel
-    (ops/pallas/windowed.py — one HBM pass, MXU blurs; the jnp slice
-    formulation is HBM-bound, ~7x slower measured at 1080p) and the plain
-    jnp formulation (CPU/oracle path)."""
-    if _pallas_ok(a, backend):
-        from turbo_metrics_tpu.ops.pallas.windowed import ssim_level
-
-        lead = a.shape[:-3]
-        a4 = a.reshape((-1,) + a.shape[-3:])
-        b4 = b.reshape((-1,) + b.shape[-3:])
-        ml, mcs = ssim_level(a4, b4, interpret=backend == "interpret")
-        return ml.reshape(lead), mcs.reshape(lead)
+def _level_means(a: jax.Array, b: jax.Array):
+    """(mean(luminance*cs), mean(cs)) over (C, valid H, valid W) -> (...,)."""
     luminance, cs = _ssim_parts(a, b)
     return (
         jnp.mean(luminance * cs, axis=(-3, -2, -1)),
@@ -100,9 +73,9 @@ def _level_means(a: jax.Array, b: jax.Array, backend: str):
     )
 
 
-def ssim(a: jax.Array, b: jax.Array, *, backend: str = "auto") -> jax.Array:
+def ssim(a: jax.Array, b: jax.Array) -> jax.Array:
     """Mean SSIM index; (..., C, H, W) -> (...,)."""
-    return _level_means(a, b, backend)[0]
+    return _level_means(a, b)[0]
 
 
 def _downsample_2x2(x: jax.Array) -> jax.Array:
@@ -125,31 +98,16 @@ def _clamp_levels(h: int, w: int, levels: int):
     return levels, weights
 
 
-def _msssim_levels(a: jax.Array, b: jax.Array, levels: int, backend: str):
+def _msssim_levels(a: jax.Array, b: jax.Array, levels: int):
     """Per-level (mean(luminance*cs), mean(cs)) plus the clamped weights.
 
     Level 0's ml IS the single-scale SSIM index — the shared substrate
     for :func:`msssim` and :func:`ssim_msssim`.
     """
     levels, weights = _clamp_levels(a.shape[-2], a.shape[-1], levels)
-    lead = a.shape[:-3]
-    if _pallas_ok(a, backend):
-        # Padded-chain MS-SSIM: each level's kernel emits the next level's
-        # 2x2-mean input in-kernel (ops/pallas/windowed.py) — no jnp
-        # pad/pool between levels.
-        from turbo_metrics_tpu.ops.pallas.windowed import msssim_level_means
-
-        a4 = a.reshape((-1,) + a.shape[-3:])
-        b4 = b.reshape((-1,) + b.shape[-3:])
-        per_level = msssim_level_means(
-            a4, b4, levels, interpret=backend == "interpret"
-        )
-        return [
-            (ml.reshape(lead), mcs.reshape(lead)) for ml, mcs in per_level
-        ], weights
     per_level = []
     for lvl in range(levels):
-        per_level.append(_level_means(a, b, backend))
+        per_level.append(_level_means(a, b))
         if lvl < levels - 1:
             a = _downsample_2x2(a)
             b = _downsample_2x2(b)
@@ -166,80 +124,20 @@ def _msssim_combine(per_level, weights) -> jax.Array:
     return result
 
 
-def msssim(
-    a: jax.Array, b: jax.Array, *, levels: int = 5, backend: str = "auto"
-) -> jax.Array:
+def msssim(a: jax.Array, b: jax.Array, *, levels: int = 5) -> jax.Array:
     """Multi-scale SSIM (Wang 2003); (..., C, H, W) -> (...,)."""
-    return _msssim_combine(*_msssim_levels(a, b, levels, backend))
-
-
-def quality_from_padded(
-    p12: jax.Array, h: int, w: int, *, want_psnr: bool = False,
-    want_ssim: bool = False, want_msssim: bool = False, levels: int = 5,
-    interpret: bool = False, ms_ds_buf: jax.Array | None = None,
-) -> dict:
-    """PSNR/SSIM/MS-SSIM straight from a padded (2, B, 3, hp, wp)
-    LINEAR-RGB buffer (the fused conversion kernel's output — the engine's
-    multi-metric fast path).  The 8-bit quantization pass
-    (clip(round(lin*255)), the reference's f32_to_8bit before NPP) happens
-    in-kernel / XLA-fused, never materialised in HBM; the SSIM family
-    skips its per-metric pad_to_layout4 copy entirely.  Values match
-    psnr/ssim/msssim on the quantized unpadded arrays (PSNR exactly up to
-    f32 sum order; SSIM family bit-identically — same kernel).
-    """
-    out = {}
-    if want_psnr:
-        q = jnp.clip(jnp.round(p12 * np.float32(255.0)), 0.0, 255.0)
-        d = q[0] - q[1]
-        # The halo/pad region is exactly zero in BOTH images (the padded
-        # layout's invariant), so it contributes nothing to the SSD;
-        # divide by the true pixel count.
-        mse = jnp.sum(d * d, axis=(-3, -2, -1)) / np.float32(3 * h * w)
-        out["psnr"] = np.float32(10.0) * jnp.log10(
-            np.float32(255.0 * 255.0) / mse
-        )
-    if want_msssim:
-        from turbo_metrics_tpu.ops.pallas.windowed import (
-            msssim_level_means_padded,
-        )
-
-        lv, weights = _clamp_levels(h, w, levels)
-        if ms_ds_buf is not None and lv > 1:
-            # Caller-threaded (donated) level-0 emit buffer: returned
-            # under "_ms_ds_buf" so step loops can reuse it and skip the
-            # per-step zero refill of the aliased output.
-            per_level, out["_ms_ds_buf"] = msssim_level_means_padded(
-                p12, h, w, lv, quantize=True, interpret=interpret,
-                ds_buf=ms_ds_buf,
-            )
-        else:
-            per_level = msssim_level_means_padded(
-                p12, h, w, lv, quantize=True, interpret=interpret
-            )
-            if ms_ds_buf is not None:
-                out["_ms_ds_buf"] = ms_ds_buf
-        out["msssim"] = _msssim_combine(per_level, weights)
-        if want_ssim:
-            out["ssim"] = per_level[0][0]
-    elif want_ssim:
-        from turbo_metrics_tpu.ops.pallas.windowed import ssim_level_padded
-
-        out["ssim"] = ssim_level_padded(
-            p12, h, w, quantize=True, interpret=interpret
-        )[0]
-    return out
+    return _msssim_combine(*_msssim_levels(a, b, levels))
 
 
 def ssim_msssim(
-    a: jax.Array, b: jax.Array, *, levels: int = 5, backend: str = "auto"
+    a: jax.Array, b: jax.Array, *, levels: int = 5
 ) -> tuple[jax.Array, jax.Array]:
     """(SSIM, MS-SSIM) sharing one level-0 windowed pass.
 
-    MS-SSIM's level 0 computes exactly the windowed stats SSIM needs (the
-    same kernel; `emit_ds` only adds the half-pool DMA), so requesting
-    both metrics separately doubles the most expensive level for nothing —
-    ~7 ms/b8 of the multi-metric engine step at 1080p.  Values match
-    ``ssim(a, b)`` / ``msssim(a, b)`` computed independently.
+    MS-SSIM's level 0 computes exactly the windowed stats SSIM needs, so
+    requesting both metrics separately would compute the most expensive
+    level twice.  Values match ``ssim(a, b)`` / ``msssim(a, b)`` computed
+    independently.
     """
-    per_level, weights = _msssim_levels(a, b, levels, backend)
+    per_level, weights = _msssim_levels(a, b, levels)
     return per_level[0][0], _msssim_combine(per_level, weights)

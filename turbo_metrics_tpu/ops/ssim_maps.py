@@ -5,7 +5,7 @@ detail-loss) maps with their 1-norm and 4-norm reductions, following the
 canonical math (reference: ssimulacra2-cuda/examples/cpu.rs:581-683, device
 kernel ssimulacra2-cuda-kernel/src/error_maps.rs:5-60).
 
-TPU notes:
+Numerics:
   * Everything is f32; XLA reductions are tree-structured so the f32 mean is
     accurate to ~1e-6 relative even at 4K (the reference accumulates in f64
     on a scalar CPU loop — tree reduction achieves the same accuracy).

@@ -1,6 +1,6 @@
 """VMAF motion feature: integer 5-tap blur + SAD against the previous frame.
 
-TPU-native equivalent of the reference's motion kernel
+Equivalent of the reference's motion kernel
 (vmaf-cuda-kernel/src/integer_motion.rs:28-92), bit-exact integer math:
 
     blurred_y(col)  = sum_k F[k] * sample           (u32)
@@ -33,34 +33,8 @@ def _pad_mirror(x: jax.Array, axis: int) -> jax.Array:
     return jnp.concatenate([lo, x, hi], axis=axis)
 
 
-def _default_backend() -> str:
-    # Measured on TPU v5e (1080p b8, within-run A/B): the jnp integer blur
-    # + SAD fuses to 1.86 ms vs the Pallas kernel's 3.22 — XLA's u32
-    # shift/add fusion beats the kernel's hi/lo byte-split matmuls.  jnp is
-    # the default on every platform; backend='pallas' keeps the kernel.
-    return "jnp"
-
-
-def integer_blur(
-    y: jax.Array, *, depth: int = 8, backend: str | None = None
-) -> jax.Array:
-    """Exact-integer separable 5-tap blur of (..., H, W) luma -> uint16.
-
-    Default backend is 'jnp' everywhere (measured faster than the Pallas
-    kernel on TPU, see _default_backend); 'pallas' (bit-exact, batched 3-D
-    inputs) stays opt-in, 'interpret' runs it on the CPU interpreter."""
-    if backend is None:
-        backend = _default_backend()
-    if (
-        backend in ("pallas", "interpret")
-        and y.ndim == 3
-        and min(y.shape[-2], y.shape[-1]) >= 32
-    ):
-        from turbo_metrics_tpu.ops.pallas.motion import integer_blur_pallas
-
-        return integer_blur_pallas(
-            y, depth=depth, interpret=backend == "interpret"
-        )
+def integer_blur(y: jax.Array, *, depth: int = 8) -> jax.Array:
+    """Exact-integer separable 5-tap blur of (..., H, W) luma -> uint16."""
     x = y.astype(jnp.uint32)
     h, w = y.shape[-2], y.shape[-1]
 
@@ -76,37 +50,6 @@ def integer_blur(
     for k in range(5):
         acc2 = acc2 + FILTER[k] * jax.lax.slice_in_dim(tp, k, k + w, axis=-1)
     return ((acc2 + jnp.uint32(32768)) >> 16).astype(jnp.uint16)
-
-
-def motion_stats(
-    y: jax.Array,
-    prev_blurred: jax.Array,
-    *,
-    depth: int = 8,
-    backend: str | None = None,
-) -> dict:
-    """Blur the current luma and SAD it against the previous blurred frame.
-
-    Returns {'blurred': (..., H, W) u16, 'sad_rows': (..., H) u32} — row sums
-    keep the device reduction in u32 range; the host finishes in int64.
-    """
-    if backend is None:
-        backend = _default_backend()
-    if (
-        backend in ("pallas", "interpret")
-        and y.ndim == 3
-        and min(y.shape[-2], y.shape[-1]) >= 32
-    ):
-        from turbo_metrics_tpu.ops.pallas.motion import motion_stats_pallas
-
-        return motion_stats_pallas(
-            y, prev_blurred, depth=depth, interpret=backend == "interpret"
-        )
-    blurred = integer_blur(y, depth=depth, backend="jnp")
-    diff = jnp.abs(
-        blurred.astype(jnp.int32) - prev_blurred.astype(jnp.int32)
-    ).astype(jnp.uint32)
-    return {"blurred": blurred, "sad_rows": diff.sum(axis=-1, dtype=jnp.uint32)}
 
 
 def motion_score(sad: int, width: int, height: int, *, depth: int = 8) -> float:

@@ -1,6 +1,6 @@
 """XPSNR device ops: per-block SSE, spatial and temporal activity.
 
-TPU-native equivalent of xpsnr_support_8/xpsnr_postprocess
+Equivalent of xpsnr_support_8/xpsnr_postprocess
 (xpsnr-cuda-kernel/src/lib.rs:38-120) and the NPP highpass filter setup
 (xpsnr-cuda/src/lib.rs:92-115).  The warp-shuffle + atomic per-block
 accumulation of the CUDA kernel becomes a reshape into (16, 16) tiles and a
@@ -59,38 +59,13 @@ def xpsnr_block_stats(
     y_prev: jax.Array,
     *,
     block: int = BLOCK,
-    depth: int = 8,
-    backend: str | None = None,
 ) -> dict[str, jax.Array]:
     """Per-block SSE / spatial activity / temporal activity.
 
     Inputs: integer luma planes (..., H, W); ``y_prev`` is the previous
     *reference* frame (for the first frame, pass the frame itself -> tact 0).
     Returns uint32 block grids (kernel lib.rs:69-91).
-
-    ``backend``: 'pallas' (fused one-pass kernel, TPU default for 16-px
-    blocks on batched 3-D inputs), 'jnp' (XLA path), 'interpret' (Pallas
-    interpreter for CPU tests).  The Pallas path is bit-exact.
     """
-    if backend is None:
-        backend = (
-            "pallas" if jax.devices()[0].platform == "tpu" else "jnp"
-        )
-    if (
-        backend in ("pallas", "interpret")
-        and block == BLOCK
-        and y_ref.ndim == 3
-        and min(y_ref.shape[-2], y_ref.shape[-1]) >= 32
-        and depth <= 12  # hi-limb block sums stay under 2^24 (exact f32)
-    ):
-        from turbo_metrics_tpu.ops.pallas.xpsnr import (
-            xpsnr_block_stats_pallas,
-        )
-
-        return xpsnr_block_stats_pallas(
-            y_ref, y_dis, y_prev, depth=depth,
-            interpret=backend == "interpret",
-        )
     r = y_ref.astype(jnp.int32)
     d = y_dis.astype(jnp.int32)
     p = y_prev.astype(jnp.int32)

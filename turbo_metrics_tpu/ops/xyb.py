@@ -40,22 +40,6 @@ OPSIN_ABSORBANCE_BIAS = np.float32(0.0037930734)
 OPSIN_ABSORBANCE_BIAS_ROOT = np.float32(0.15595420255272392)
 
 
-def _cbrt(v: jax.Array) -> jax.Array:
-    """Newton-refined cube root of max(v, 0).
-
-    XLA:TPU lowers cbrt/pow through approximate transcendentals (~1e-6
-    relative, worth ~0.01 on the final score); one Newton step brings it to
-    ~1 ulp.  Inputs here are >= the opsin bias > 0, but guard v == 0 anyway.
-    """
-    v = jnp.maximum(v, 0.0)
-    y0 = jnp.cbrt(v)
-    y0sq = y0 * y0
-    refined = (np.float32(2.0) * y0 + v / jnp.maximum(y0sq, np.float32(1e-30))) * np.float32(
-        1.0 / 3.0
-    )
-    return jnp.where(v > 0.0, refined, 0.0)
-
-
 def linear_rgb_to_xyb(rgb: jax.Array, *, channel_axis: int = -3) -> jax.Array:
     """Convert linear RGB to positive-shifted XYB.
 
@@ -73,9 +57,12 @@ def linear_rgb_to_xyb(rgb: jax.Array, *, channel_axis: int = -3) -> jax.Array:
     bmix = m[2, 0] * r + m[2, 1] * g + m[2, 2] * b + bias
 
     root = OPSIN_ABSORBANCE_BIAS_ROOT
-    rg = _cbrt(rmix) - root
-    gr = _cbrt(gmix) - root
-    bb = _cbrt(bmix) - root
+    # The mixes are >= the opsin bias > 0.  XLA's f32 cbrt is within 1.15 ulp
+    # of the f64 root on the H100 (1.19 on the CPU) over the whole input
+    # range, so no refinement step is needed.
+    rg = jnp.cbrt(rmix) - root
+    gr = jnp.cbrt(gmix) - root
+    bb = jnp.cbrt(bmix) - root
 
     x = 0.5 * (rg - gr)
     y = 0.5 * (rg + gr)

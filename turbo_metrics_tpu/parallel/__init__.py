@@ -1,1 +1,1 @@
-"""Multi-chip scaling: device meshes, frame-batch sharding, host streaming."""
+"""Multi-device scaling: device meshes, frame-batch sharding, host streaming."""

@@ -1,14 +1,15 @@
-"""Multi-chip scaling via jax.sharding: data-parallel frame batches.
+"""Multi-device scaling via jax.sharding: data-parallel frame batches.
 
 The workload is embarrassingly parallel over frame pairs (SURVEY.md section 5:
 the reference has no cross-device sharding; its concurrency unit is the
-frame).  The idiomatic TPU scale-out is therefore a 1-D device mesh with the
-batch axis sharded across chips: XLA compiles one SPMD program, frames ride
-ICI only for the initial host->device scatter, and per-frame scalar scores
-gather back with no collectives in the hot path.
+frame).  The scale-out is therefore a 1-D device mesh with the batch axis
+sharded across devices: XLA compiles one SPMD program, frames move only in
+the initial host->device scatter, and per-frame scalar scores gather back
+with no collectives in the hot path (VMAF motion's one shard-boundary frame
+is a single ppermute).
 
 TP/PP/EP have no analog here (no weights, no layers, no experts); the SP
-analog (sharding a single frame's rows across chips with halo exchange for
+analog (sharding a single frame's rows across devices with halo exchange for
 the blurs) is provided by ``spatial_shard_blur`` as a building block.
 """
 
@@ -57,7 +58,7 @@ def spatial_sharding(mesh: Mesh, ndim: int, *, axis: str = FRAME_AXIS) -> NamedS
     """Shard the width (last) axis across the mesh — the SP analog.
 
     For a single huge frame (8K stills) the batch axis may be 1; sharding W
-    instead splits one frame's columns across chips.  The separable blurs'
+    instead splits one frame's columns across devices.  The separable blurs'
     shifted slices make XLA's SPMD partitioner insert halo exchanges
     (collective-permute over ICI) automatically — no manual ring code.
     """

@@ -1,6 +1,6 @@
 """Host->device streaming: overlap decode, upload and compute.
 
-The TPU analog of the reference's stream-ordered async H2D copies + NVDEC
+The analog of the reference's stream-ordered async H2D copies + NVDEC
 display queue (SURVEY.md section 5 "Pipeline parallelism"): a background
 thread decodes and stacks frame batches while the device crunches the
 previous batch; `jax.device_put` is async, so the upload of batch N+1 rides

@@ -8,9 +8,9 @@ coefficients rounded from the float taps with the centre tap absorbing the
 rounding residue, two separable passes with defined rounding right-shifts
 between them, integer products, integer moment statistics, reflect-101
 borders — adapted to 32-bit arithmetic (every intermediate is exact in
-uint32/int32, see the schedule below), so the TPU device path
-(ops/integer_vif.py) can reproduce it BIT-EXACTLY with native 32-bit
-integer ops (TPUs have no fast 64-bit integer path).
+uint32/int32, see the schedule below), so the device path
+(ops/integer_vif.py) can reproduce it BIT-EXACTLY with 32-bit integer ops
+(JAX's default integer width).
 
 It is NOT claimed to be bit-identical to libvmaf's integer_vif (whose exact
 shift schedule and 64-bit accumulators cannot be verified offline — see

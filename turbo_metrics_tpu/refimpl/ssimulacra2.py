@@ -3,9 +3,9 @@
 This mirrors the canonical scalar implementation that the reference project
 gates its GPU results against (ssimulacra2-cuda/examples/cpu.rs, itself a port
 of rust-av/ssimulacra2 / cloudinary ssimulacra2): f32 per-pixel math, the
-actual recursive-Gaussian recurrence (not the FIR equivalent the TPU path
+actual recursive-Gaussian recurrence (not the FIR equivalent the device path
 uses), and f64 accumulation in the map reductions.  It is intentionally slow
-and simple; the pytest suite asserts the JAX/TPU pipeline matches it to well
+and simple; the pytest suite asserts the JAX pipeline matches it to well
 under the +/-0.05 parity budget.
 """
 
